@@ -80,7 +80,7 @@ def argument_parser(
                         help="The kind of pool used to process sequences in parallel.")
     parser.add_argument("--backend", action="store",
                         choices=("detect", "refcore", "jax"), default="detect",
-                        help="Compute backend: the exact C engine or the batched JAX/TPU pipeline.")
+                        help="Compute backend: the exact C engine (refcore), the batched JAX device pipeline (jax), or jax when a GPU is present (detect).")
     parser.add_argument("--meta-batch", type=int, default=META_BATCH,
                         help="Contigs per device launch group in meta mode.")
     return parser

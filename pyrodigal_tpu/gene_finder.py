@@ -1,8 +1,8 @@
 """The `GeneFinder` orchestrator (reference: lib.pyx:5071-5575).
 
-Runs the full pipeline with the exact C reference engine by default
-(``backend="refcore"``); the TPU/JAX batched pipeline lives in
-`pyrodigal_tpu.ops` and is dispatched through `pyrodigal_tpu.parallel`.
+Runs the exact C reference engine (``backend="refcore"``) or the batched
+JAX device pipeline (``backend="jax"``, `pyrodigal_tpu.ops`);
+``backend="detect"`` picks the device pipeline when a GPU is present.
 """
 
 import functools
@@ -19,6 +19,8 @@ from .nodes import Nodes
 from .genes import Genes
 from .training import TrainingInfo
 from . import _native
+
+BACKENDS = ("detect", "refcore", "jax")
 
 
 class GeneFinder:
@@ -60,6 +62,11 @@ class GeneFinder:
             raise ValueError("`max_overlap` must be positive")
         elif max_overlap > min_gene:
             raise ValueError("`max_overlap` must be lower than `min_gene`")
+        if backend not in BACKENDS:
+            hint = ' (use backend="jax")' if backend == "tpu" else ""
+            raise ValueError(
+                f"unknown backend {backend!r}{hint}; expected one of "
+                f"{', '.join(map(repr, BACKENDS))}")
 
         self.meta = meta
         self.closed = closed
@@ -83,20 +90,17 @@ class GeneFinder:
 
     def _resolve_backend(self):
         """Resolve ``backend="detect"`` against the available hardware:
-        an accelerator selects the batched JAX/Pallas pipeline, a
-        CPU-only host keeps the exact C engine (reference dispatch
-        analog: lib.pyx:1359-1432)."""
-        if self.backend in ("jax", "tpu"):
-            return "jax"
-        if self.backend == "detect":
-            try:
-                import jax
-
-                if jax.devices()[0].platform in ("tpu", "gpu"):
-                    return "jax"
-            except Exception:
-                pass
-        return "refcore"
+        a GPU selects the batched JAX/Pallas pipeline, a CPU-only host (or
+        one without jax installed) keeps the exact C engine (reference
+        dispatch analog: lib.pyx:1359-1432).  A JAX or CUDA start-up
+        failure is raised, not hidden behind the C engine."""
+        if self.backend != "detect":
+            return self.backend
+        try:
+            from .ops.platform import platform
+        except ImportError:
+            return "refcore"
+        return "jax" if platform() == "gpu" else "refcore"
 
     def _get_meta_runner(self):
         with self.lock:

@@ -1,7 +1,7 @@
 """Multi-device scaling for pyrodigal_tpu.
 
 The reference is a single-process shared-memory library (SURVEY.md §2.5);
-its parallelism is SIMD + a thread pool over contigs.  The TPU-native
+its parallelism is SIMD + a thread pool over contigs.  The device
 equivalents implemented here:
 
 * contigs are data-parallel sharded over a `jax.sharding.Mesh` axis

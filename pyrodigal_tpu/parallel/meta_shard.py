@@ -22,12 +22,11 @@ from ..ops import score_device as sd
 
 
 def sharded_score_dp_launch(mesh, tables, geo, bin_idx, gidx, *, is_meta,
-                            closed, S3, has_nonsd, relk, max_overlap, W, NP,
-                            BLK, MAX_CHUNKS, interpret=False):
+                            closed, S3, has_nonsd, relk, max_overlap,
+                            lookback, interpret=False):
     """`score_device.score_dp_launch` with the work-item axis sharded over
-    the mesh.  BT must be divisible by the mesh size (and the per-device
-    slice by BLK)."""
-    repl = lambda tree: jax.tree.map(lambda _: P(), tree)
+    the mesh.  BT must be divisible by the mesh size."""
+    repl = lambda tree: jax.tree.map(lambda _: P(), tree)   # noqa: E731
 
     @functools.partial(
         shard_map, mesh=mesh,
@@ -40,61 +39,55 @@ def sharded_score_dp_launch(mesh, tables, geo, bin_idx, gidx, *, is_meta,
         return sd.score_dp_launch(
             tables_, geo_, bin_idx_, gidx_, is_meta=is_meta, closed=closed,
             S3=S3, has_nonsd=has_nonsd, relk=relk, max_overlap=max_overlap,
-            W=W, NP=NP, BLK=BLK, MAX_CHUNKS=MAX_CHUNKS, interpret=interpret)
+            lookback=lookback, interpret=interpret)
 
     return run(tables, geo, bin_idx, gidx)
 
 
-def sharded_score_dp_launch_packed(mesh, tables, geo, bin_idx, gidx,
-                                   slot_idx, *, is_meta, closed, S3,
-                                   has_nonsd, relk, max_overlap, W, NP,
-                                   BLK, MAX_CHUNKS, NB, C,
-                                   interpret=False):
-    """Sharded sweep + on-device per-contig winner packing.
+def sharded_score_dp_launch_packed(mesh, tables, geo, bin_idx, gidx, *,
+                                   is_meta, closed, S3, has_nonsd, relk,
+                                   max_overlap, lookback, interpret=False):
+    """Sharded sweep + per-item best-score packing: the per-item sweep runs
+    data-parallel over the mesh's contig axis and the packed (BT,) result
+    comes back sharded the same way."""
 
-    The per-item sweep runs data-parallel over the mesh's contig axis; the
-    winner reduction (`pack_winners`) spans the whole launch, so it runs
-    outside the shard_map on the logically-global arrays — XLA inserts the
-    gather collectives over ICI."""
-
-    @functools.partial(jax.jit, static_argnames=())
-    def run(tables_, geo_, bin_idx_, gidx_, slot_idx_):
-        score, traceb, ov, best = sharded_score_dp_launch(
+    @jax.jit
+    def run(tables_, geo_, bin_idx_, gidx_):
+        *_, best = sharded_score_dp_launch(
             mesh, tables_, geo_, bin_idx_, gidx_, is_meta=is_meta,
             closed=closed, S3=S3, has_nonsd=has_nonsd, relk=relk,
-            max_overlap=max_overlap, W=W, NP=NP, BLK=BLK,
-            MAX_CHUNKS=MAX_CHUNKS, interpret=interpret)
-        return sd.pack_winners(score, traceb, ov, best, slot_idx_, W, NB, C)
+            max_overlap=max_overlap, lookback=lookback, interpret=interpret)
+        return sd.pack_winners(best)
 
-    return run(tables, geo, bin_idx, gidx, slot_idx)
+    return run(tables, geo, bin_idx, gidx)
 
 
-def sharded_score_dp_launch_mega(mesh, tables, geo, bin_idx, gidx,
-                                 slot_idx, *, is_meta, closed, S3,
-                                 has_nonsd, relk, max_overlap, NB, fxs,
+def sharded_score_dp_launch_mega(mesh, tables, geo, bin_idx, gidx, *,
+                                 is_meta, closed, S3, has_nonsd, relk,
+                                 max_overlap, lookback, fxs,
                                  interpret=False):
-    """The mega (node-axis-gridded) sweep with the BIN-row axis sharded
-    over the mesh: the geometry and bin tables are replicated, each
-    device scores + DPs its slice of candidate-bin rows (the rows are
-    fully independent models of the same contig pack), and the per-row
-    best scores come back sharded — a row-parallel analog of the
-    reference's sequential bin sweep (lib.pyx:5339-5374).  The row count
-    must be divisible by the mesh size."""
+    """The mega sweep with the BIN-row axis sharded over the mesh: the
+    geometry and bin tables are replicated, each device scores + DPs its
+    slice of candidate-bin rows (the rows are fully independent models of
+    the same contig pack), and the per-row best scores come back sharded
+    — a row-parallel analog of the reference's sequential bin sweep
+    (lib.pyx:5339-5374).  The row count must be divisible by the mesh
+    size."""
     packed = "nbound" in geo
     out_spec = P(None, CONTIG_AXIS) if packed else P(CONTIG_AXIS)
     repl = lambda tree: jax.tree.map(lambda _: P(), tree)   # noqa: E731
 
     @functools.partial(
         shard_map, mesh=mesh,
-        in_specs=(repl(tables), repl(geo), P(CONTIG_AXIS), P(CONTIG_AXIS),
-                  P(CONTIG_AXIS)),
+        in_specs=(repl(tables), repl(geo), P(CONTIG_AXIS), P(CONTIG_AXIS)),
         out_specs=out_spec,
         check_vma=False,
     )
-    def run(tables_, geo_, bin_idx_, gidx_, slot_idx_):
+    def run(tables_, geo_, bin_idx_, gidx_):
         return sd.score_dp_launch_mega(
-            tables_, geo_, bin_idx_, gidx_, slot_idx_, is_meta=is_meta,
+            tables_, geo_, bin_idx_, gidx_, is_meta=is_meta,
             closed=closed, S3=S3, has_nonsd=has_nonsd, relk=relk,
-            max_overlap=max_overlap, NB=NB, fxs=fxs, interpret=interpret)
+            max_overlap=max_overlap, lookback=lookback, fxs=fxs,
+            interpret=interpret)
 
-    return run(tables, geo, bin_idx, gidx, slot_idx)
+    return run(tables, geo, bin_idx, gidx)

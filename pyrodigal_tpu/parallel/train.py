@@ -9,7 +9,7 @@ lib.pyx:4284-4358) — are pure count tables, so they shard exactly:
 * the training set's CONTIGS are assigned round-robin to the mesh
   devices (each contig slice carries a 5-base halo so every hexamer is
   read by exactly one owner), and
-* the per-device 4096-bin tables are `psum`-merged over ICI, then
+* the per-device 4096-bin tables are `psum`-merged across the devices, then
   finalized into `gene_dc` by the exact C log-ratio tail
   (`rc_dicodon_finalize`).
 

@@ -1,25 +1,31 @@
-"""Differential check: on-device per-bin scoring vs the exact C engine."""
+"""Differential check: on-device per-bin scoring vs the exact C engine.
+
+Runs on JAX's default platform (a GPU if present; set JAX_PLATFORMS=cpu
+to force the CPU):
+
+    python scripts/diff_score_device.py [FASTA name in tests/data]
+"""
 import os
 import sys
 
-if "--tpu" not in sys.argv:
-    os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-sys.path.insert(0, "/root/repo")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
-import numpy as np
-import jax.numpy as jnp
+import numpy as np  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
-from pyrodigal_tpu.fasta import parse
-from pyrodigal_tpu.metagenomic import METAGENOMIC_BINS
-from pyrodigal_tpu.sequence import Sequence
-from pyrodigal_tpu.nodes import Nodes
-from pyrodigal_tpu.ops import score_device as sd
+from pyrodigal_tpu.fasta import parse  # noqa: E402
+from pyrodigal_tpu.metagenomic import METAGENOMIC_BINS  # noqa: E402
+from pyrodigal_tpu.sequence import Sequence  # noqa: E402
+from pyrodigal_tpu.nodes import Nodes  # noqa: E402
+from pyrodigal_tpu.ops import score_device as sd  # noqa: E402
+from pyrodigal_tpu.ops.platform import use_compile_cache  # noqa: E402
 
-DATA = "/root/reference/src/pyrodigal/tests/data"
+DATA = os.path.join(REPO, "tests", "data")
 
 
 def main():
+    use_compile_cache(REPO)
     which = sys.argv[1] if len(sys.argv) > 1 and not sys.argv[1].startswith("-") else "SRR492066.fna.gz"
     rec = list(parse(os.path.join(DATA, which)))[0]
     seq = Sequence(rec.seq[:30000])

@@ -1,7 +1,7 @@
 """Differential tests: the JAX scan DP against the exact C engine.
 
 Plays the role of the reference's backend-differential suite
-(reference: tests/test_connection_scorer.py): the TPU path must produce
+(reference: tests/test_connection_scorer.py): the device path must produce
 the same final gene set as the exact float64 engine.
 """
 

@@ -1,5 +1,5 @@
 """`jax` is an optional dependency: the package must import and run the
-exact C path on a host without jax (pyproject: jax lives in the `tpu`
+exact C path on a host without jax (pyproject: jax lives in the `jax`
 extra)."""
 
 import os
